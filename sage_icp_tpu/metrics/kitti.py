@@ -9,7 +9,7 @@ module (cpp/sage_icp/metrics/Metrics.cpp, itself from the KITTI dev-kit).
   translation residuals (Metrics.cpp:157-191).
 
 Host-side numpy: metric evaluation is offline and tiny; no reason to put
-it on the TPU.
+it on the device.
 """
 
 from __future__ import annotations

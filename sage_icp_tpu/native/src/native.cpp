@@ -1,10 +1,10 @@
 // sage_icp_tpu native runtime: fast LiDAR scan IO + host preprocessing.
 //
 // The reference framework's runtime is C++ (ROS node + Eigen conversions,
-// ros/ros2/Utils.hpp); in this framework the TPU owns all compute, and the
+// ros/ros2/Utils.hpp); in this framework the device owns all compute, and the
 // host-side runtime work is scan loading + assembly of the fixed-shape
 // device buffers. Doing that in C++ (with a GIL-releasing thread pool)
-// keeps the single host core feeding the chip instead of burning it in
+// keeps the host core feeding the device instead of burning it in
 // numpy glue:
 //   * load_scan: fread velodyne .bin (+ .label, id = raw & 0xFFFF,
 //     reference eval/kitti_pub.py:153,176) into one (n, 4) float32 array

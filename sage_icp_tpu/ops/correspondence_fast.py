@@ -1,24 +1,23 @@
-"""TPU-optimized semantic correspondence search + hash probing.
+"""Voxel-grouped semantic correspondence search + hash probing.
 
 Semantically identical to ops.hashmap.get_correspondences / lookup
 (reference cpp/sage_icp/core/VoxelHashMap.cpp:48-130), but restructured
-around measured TPU v5e gather behavior:
+for fixed-shape accelerator execution:
 
-  * XLA gathers with multi-dim indices into rank-3 tables run ~15x slower
-    than flat-index gathers into rank-2 tables; tiny rows (<64 B) are
-    element-serialized. Everything here gathers WIDE rows with FLAT
-    indices.
+  * Everything gathers WIDE rows with FLAT indices (multi-dim index
+    gathers into rank-3 tables, and tiny rows, lowered much slower on
+    the accelerator this was first written for; not measured on the
+    H100).
   * Probing D linear-probe slots per key would be D tiny gathers; instead
     a per-frame "window table" W[i] = packed_keys[i : i + D] (built with
-    D cheap rolls, no gather) turns one probe into ONE (2D,)-row gather
-    (keys + counts together).
+    D cheap rolls, no gather) turns one probe into ONE (D,)-row gather.
   * Voxel keys pack into one int32 as 10-bit offsets from a frame center
     voxel, so key comparison is a single integer compare.
   * Queries are sorted and grouped by voxel: all queries in a voxel share
     their 27 neighbors, so candidates are fetched once per UNIQUE voxel
-    (a 2-5x cut) into a [rows, 27K, 4] tensor, and distances compute on
-    the MXU as |q|^2 + |c|^2 - 2 q.c in voxel-local coordinates (local
-    magnitudes ~2 m keep f32 exact).
+    into (R, 27K) int16 planes, and distances compute as direct
+    differences in voxel-local coordinates (local magnitudes ~2 m keep
+    f32 exact).
 
 The argmin metric (sem_th-scaled squared distance for label-match-or-
 unknown) and the unweighted acceptance gate reproduce the reference
@@ -85,7 +84,7 @@ def build_probe_tables(
     # the map stores blocks PLANAR already (hashmap.MapState.points is
     # (C, 4, K)), so the gather-ready flat view is a free reshape —
     # component extraction after the candidate gather stays contiguous
-    # K-lane slices (a stride-4 relayout measured ~5 ms/iteration)
+    # K-lane slices instead of a stride-4 relayout
     planar = state.points.reshape(state.capacity, 4 * k)
     return ProbeTables(
         window=window,
@@ -113,17 +112,6 @@ def probe(
     d1 = jnp.argmax(match, axis=-1)
     slot = (h + hm.probe_offset(d1)) & (cap - 1)
     return found, slot
-
-
-def _pallas_mode() -> str:
-    """Pick the fused-kernel mode for the current backend: compiled on
-    TPU, interpreter elsewhere (tests on the virtual CPU mesh).
-    SAGE_PALLAS=off forces the pure-XLA paths (diagnostics)."""
-    import os
-
-    if os.environ.get("SAGE_PALLAS", "") == "off":
-        return "off"
-    return "tpu" if jax.default_backend() == "tpu" else "interpret"
 
 
 class CorrSetup(NamedTuple):
@@ -215,10 +203,11 @@ def corr_setup(
     )
     col = jnp.where(is_ov, 0, jnp.minimum(q_rank, P - 1))
 
-    # --- grid build by GATHER, not scatter (TPU scatters run at 0.1-1 GB/s,
-    # wide-row gathers 1-40 GB/s; docs/PERF.md). Row r's queries live at
-    # sorted positions start[r] + p, so two small int scatters (head and
-    # overflow start positions) replace five (R, P)-shaped scatters. -------
+    # --- grid build by GATHER, not scatter (scatter avoidance: a design
+    # choice from the first target accelerator, not measured on the H100).
+    # Row r's queries live at sorted positions start[r] + p, so two small
+    # int scatters (head and overflow start positions) replace five
+    # (R, P)-shaped scatters. ---------------------------------------------
     rel_s = trunc_div(q_s[:, :3], voxel_size) - tables.center[None, :]
     u_src = jnp.where(head & (u_rank < Q), u_rank, Q)
     hp = jnp.full((Q + 1,), n, jnp.int32).at[u_src].set(
@@ -238,9 +227,8 @@ def corr_setup(
 
     # one packed record per sorted query; a row's P queries are CONTIGUOUS
     # in the sorted array, so P cheap rolls build a (N, 5P) window table
-    # and the whole grid comes from ONE wide-row gather (a (R, P) gather
-    # of 20 B records is the element-serialized class; 160 B window rows
-    # are the fast class — docs/PERF.md)
+    # and the whole grid comes from ONE wide-row gather instead of a
+    # (R, P) gather of 20 B records
     rec = jnp.concatenate(
         [
             q_s,  # x y z label
@@ -287,21 +275,20 @@ def corr_setup(
 
     # --- fetch candidate blocks (flat wide-row gather, PLANAR layout) -------
     # rows stay int16 (half the gather bytes of f32); dequantization to
-    # row-local f32 happens lane-wise inside the NN kernel (VMEM), so HBM
-    # only ever holds the quantized planes
+    # row-local f32 happens lane-wise where the planes are consumed, so
+    # device memory only ever holds the quantized planes
     flat_slot = jnp.where(found, slot, 0).reshape(-1)  # (R*27,)
     raw = tables.points2[flat_slot]  # (R*27, 4K)
     M = 27 * K
-    # plane extraction as ONE (R27, 4, K) -> (4, R27, K) transpose — XLA
-    # lowers this measurably faster than four strided slices (0.55 vs
-    # 0.87 ms at KITTI scale)
+    # plane extraction as ONE (R27, 4, K) -> (4, R27, K) transpose
+    # instead of four strided slices
     planes = jnp.swapaxes(raw.reshape(R * 27, 4, K), 0, 1).reshape(4, R, M)
     cx_q, cy_q, cz_q, cl = planes[0], planes[1], planes[2], planes[3]
     # block-level mask only: per-lane validity is already encoded in the
     # sanitized label plane (-1 at/beyond each block's count)
     cm = jnp.broadcast_to(found[..., None], (R, 27, K)).reshape(R, M)
 
-    # the label plane carries the invalid-lane sentinel (-1): the kernel
+    # the label plane carries the invalid-lane sentinel (-1): the NN step
     # pushes invalid lanes to +inf weighted metric (loses every argmin) and
     # to a huge true distance (fails the acceptance gate on empty rows)
     q0 = g[..., :4]  # (R, P, 4) world coords + label at setup
@@ -332,7 +319,6 @@ def corr_apply(
     voxel_size,
     max_correspondence_distance,
     sem_th,
-    pallas_nn: str | None = None,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """One semantic NN pass on the frozen structure. T: (4, 4) pose
     increment since setup (identity on the first pass — then the result
@@ -382,63 +368,40 @@ def corr_apply(
     )  # (M, 3) static per-lane neighbor offset, meters
     scale = voxel_size / hm.QSCALE
 
-    mode = pallas_nn if pallas_nn is not None else _pallas_mode()
-    if mode != "off" and R % 128 == 0:
-        # fused Pallas selection: dequantize + distances + semantic
-        # weighting + argmin + winner gather in VMEM; HBM reads per
-        # iteration are exactly the int16 planes
-        from sage_icp_tpu.ops import pallas_nn as pnn
+    # dequantize to (R, M) f32 planes and take DIRECT differences: XLA
+    # fuses dx^2 + dy^2 + dz^2, the semantic weighting and the argmin
+    # into one reduction over the candidate lanes (no cancellation, no
+    # degenerate K=3 matmul)
+    cm = setup.clp >= 0
+    cxf = setup.cxp.astype(dt) * scale + offs[None, :, 0]
+    cyf = setup.cyp.astype(dt) * scale + offs[None, :, 1]
+    czf = setup.czp.astype(dt) * scale + offs[None, :, 2]
+    cli = setup.clp.astype(jnp.int32)
+    labi = lab.astype(jnp.int32)
+    dx = cxf[:, None, :] - q_loc[..., 0:1]  # (R, P, M)
+    dy = cyf[:, None, :] - q_loc[..., 1:2]
+    dz = czf[:, None, :] - q_loc[..., 2:3]
+    d2 = dx * dx + dy * dy + dz * dz
 
-        q4 = jnp.concatenate([q_loc, lab[..., None]], axis=-1).reshape(
-            R, 4 * P
-        )
-        tx, ty, tz, tl, d2t = pnn.fused_semantic_nn(
-            setup.cxp, setup.cyp, setup.czp, setup.clp,
-            offs[None, :, 0], offs[None, :, 1], offs[None, :, 2],
-            q4, sem_th, scale,
-            interpret=(mode == "interpret"),
-        )
-        tgt_grid = jnp.stack(
-            [tx + origin[:, 0:1], ty + origin[:, 1:2], tz + origin[:, 2:3],
-             tl],
-            axis=-1,
-        )  # (R, P, 4) world
-        # invalid lanes (label -1) carry a huge true distance, so an empty
-        # neighborhood fails the unweighted gate with no explicit any_cand
-        accept_grid = used & (jnp.sqrt(d2t) < max_correspondence_distance)
-    else:
-        # XLA path: dequantize to (R, M) f32 planes, then
-        # |q|^2 + |c|^2 - 2 q.c on the MXU in row-local coordinates
-        cm = setup.clp >= 0
-        cxf = setup.cxp.astype(dt) * scale + offs[None, :, 0]
-        cyf = setup.cyp.astype(dt) * scale + offs[None, :, 1]
-        czf = setup.czp.astype(dt) * scale + offs[None, :, 2]
-        c_flat = jnp.stack([cxf, cyf, czf], axis=-1)  # (R, M, 3) row-local
-        cli = setup.clp.astype(jnp.int32)
-        labi = lab.astype(jnp.int32)
-        qq = jnp.sum(q_loc * q_loc, axis=-1)  # (R, P)
-        cc = jnp.sum(c_flat * c_flat, axis=-1)  # (R, M)
-        qc = jnp.einsum("rpd,rmd->rpm", q_loc, c_flat, precision="highest")
-        d2 = qq[:, :, None] + cc[:, None, :] - 2.0 * qc  # (R, P, M)
-        d2 = jnp.maximum(d2, 0.0)
+    sem = (cli[:, None, :] == labi[:, :, None]) | (
+        cli[:, None, :] * labi[:, :, None] == 0
+    )
+    inf = jnp.asarray(jnp.finfo(d2.dtype).max, d2.dtype)
+    d2w = jnp.where(sem, d2 * sem_th, d2)
+    d2w = jnp.where(cm[:, None, :], d2w, inf)
 
-        sem = (cli[:, None, :] == labi[:, :, None]) | (
-            cli[:, None, :] * labi[:, :, None] == 0
-        )
-        inf = jnp.asarray(jnp.finfo(d2.dtype).max, d2.dtype)
-        d2w = jnp.where(sem, d2 * sem_th, d2)
-        d2w = jnp.where(cm[:, None, :], d2w, inf)
-
-        best = jnp.argmin(d2w, axis=-1)  # (R, P)
-        any_cand = jnp.any(cm, axis=-1)  # (R,)
-        cand4 = jnp.concatenate(
-            [c_flat + origin[:, None, :], cli.astype(dt)[..., None]], axis=-1
-        )  # (R, M, 4) world
-        tgt_grid = jnp.take_along_axis(cand4, best[:, :, None], axis=1)
-        d_true = jnp.linalg.norm(tgt_grid[..., :3] - q_w, axis=-1)
-        accept_grid = (
-            used & any_cand[:, None] & (d_true < max_correspondence_distance)
-        )
+    best = jnp.argmin(d2w, axis=-1)  # (R, P) first minimum, like the ref
+    any_cand = jnp.any(cm, axis=-1)  # (R,)
+    pick = lambda plane: jnp.take_along_axis(plane, best, axis=1)  # (R, P)
+    tgt_loc = jnp.stack([pick(cxf), pick(cyf), pick(czf)], axis=-1)
+    tgt_grid = jnp.concatenate(
+        [tgt_loc + origin[:, None, :], pick(cli).astype(dt)[..., None]],
+        axis=-1,
+    )  # (R, P, 4) world
+    d_true = jnp.linalg.norm(tgt_loc - q_loc, axis=-1)
+    accept_grid = (
+        used & any_cand[:, None] & (d_true < max_correspondence_distance)
+    )
 
     src_grid = jnp.concatenate([q_w, lab[..., None]], axis=-1)
     return src_grid, tgt_grid, accept_grid
@@ -456,7 +419,6 @@ def get_correspondences_fast(
     unique_voxel_rows: int = 4096,
     queries_per_voxel: int = 8,
     overflow_rows: int = 1024,
-    pallas_nn: str | None = None,  # None = auto, "off" = XLA einsum path
 ) -> tuple[jax.Array, jax.Array]:
     """Drop-in fast replacement for hm.get_correspondences. query: (N, 4).
     Returns (target (N, 4), accept (N,)). Setup + identity apply: a single
@@ -468,7 +430,7 @@ def get_correspondences_fast(
     )
     _, tgt_grid, accept_grid = corr_apply(
         setup, jnp.eye(4, dtype=query.dtype), voxel_size,
-        max_correspondence_distance, sem_th, pallas_nn,
+        max_correspondence_distance, sem_th,
     )
     R = setup.grid_used.shape[0]
     # back to original query order: one int32 scatter builds the inverse

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group ops in pure JAX.
 
-TPU-native replacement for the reference's Sophus usage
+Array-program replacement for the reference's Sophus usage
 (reference: cpp/sage_icp/core/Registration.cpp:92-93 SE3::exp,
 cpp/sage_icp/pipeline/sageICP.cpp:110-115 pose compose/inverse,
 cpp/sage_icp/core/Threshold.cpp:29-34 angle extraction).
@@ -223,7 +223,7 @@ def umeyama_alignment(src: jax.Array, dst: jax.Array, with_scale: bool = False):
     R = jnp.matmul(jnp.matmul(U, S, precision='highest'), Vt, precision='highest')
     if with_scale:
         var_s = jnp.mean(jnp.sum(sc * sc, axis=-1))
-        c = jnp.trace(jnp.diag(D) @ S) / var_s
+        c = jnp.trace(jnp.matmul(jnp.diag(D), S, precision='highest')) / var_s
     else:
         c = jnp.asarray(1.0, dtype=src.dtype)
     t = mu_d - c * jnp.matmul(R, mu_s, precision='highest')

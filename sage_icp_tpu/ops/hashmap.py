@@ -1,5 +1,5 @@
 """Semantic voxel-hash local map as a fixed-capacity open-addressing table
-in device arrays — the TPU-native replacement for the reference's
+in device arrays — the accelerator replacement for the reference's
 tsl::robin_map<Voxel, VoxelBlock> (cpp/sage_icp/core/VoxelHashMap.{hpp,cpp}).
 
 Design
@@ -18,8 +18,7 @@ case error voxel_size / 32767 / 2 ~ 0.015 mm, three orders of magnitude
 below LiDAR noise) and the label as int16. This halves every hot byte
 stream over the f32 layout: the map buffer itself (donation copies), the
 per-solve candidate gathers, the per-ICP-iteration kernel reads, and the
-insert read-modify-write — the dominant costs on a bandwidth-bound TPU
-(docs/PERF.md). World coordinates are reconstructed on demand from the
+insert read-modify-write — all memory-bound streams. World coordinates are reconstructed on demand from the
 slot's key; all distance math then runs in voxel-local frame where f32
 is exact.
 
@@ -67,6 +66,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from sage_icp_tpu.ops import routing
 from sage_icp_tpu.ops.scan import INVALID_COORD, trunc_div
 
 # Probe depth for bounded linear probing. With capacity >= 2x expected live
@@ -192,10 +192,10 @@ def grid_probe(
 ) -> tuple[jax.Array, jax.Array]:
     """Dense-index lookup: (found, slot (clamped 0)) for voxel keys
     (…, 3). ONE 8-byte-row gather into the torus + a checksum compare
-    replace the D-slot hash-window probe. Element-gather latency is per
-    ROW on TPU, so everything needed must ride one row — a first version
-    with separate slot/checksum/count gathers was SLOWER than the window
-    probe it replaced (docs/PERF.md). Block emptiness (culled voxels) is
+    replace the D-slot hash-window probe; everything needed rides that
+    one row (a first version with separate slot/checksum/count gathers
+    was slower than the window probe on the accelerator this was first
+    written for; not measured on the H100). Block emptiness (culled voxels) is
     NOT resolved here: the fast correspondence path reads validity from
     the sanitized label lane (-1 beyond each block's count) and insert
     re-reads counts[slot] itself. Entries whose slot was re-claimed by
@@ -276,7 +276,7 @@ def hash_keys(keys: jax.Array, capacity: int) -> jax.Array:
     open-addressing table does not. Masking the 3-prime XOR to its LOW
     bits clusters structured voxel grids badly: on the bench corridor at
     load 0.17 serial linear probing already exhausts an 8-slot window for
-    8% of keys (measured, docs/PERF.md). Multiplying by 2^32/phi and
+    8% of keys (simulated on the host). Multiplying by 2^32/phi and
     taking the HIGH bits decorrelates the lattice: failures drop ~12x at
     equal load. Semantics are unchanged (any hash is correct; insert,
     lookup and the probe windows all route through this function)."""
@@ -356,8 +356,9 @@ def insert(
     probe_depth: int = DEFAULT_PROBE_DEPTH,
     unique_voxel_capacity: int | None = None,
     tables=None,
-    policy_kernel: bool | None = None,  # None = auto (fused Pallas kernel
-    #                                     when the row count tiles evenly)
+    kernel_mode: str | None = None,  # ops/routing mode of the retention
+    #   policy (None = the backend's route: the kernel on a GPU, the XLA
+    #   while_loop on the CPU)
     basic_labels: tuple | None = None,  # static label set: enables the
     #                                     compare-chain classification
     #                                     (no per-point LUT gather)
@@ -386,15 +387,14 @@ def insert(
     gathers), then the updated blocks all-gather for the replicated
     write-back. Rows are independent, so the sharded result is EXACTLY
     the single-device result. This deliberately deviates from a
-    hash-prefix-sharded table (docs/PERF.md round-4 sketch): triangular
+    hash-prefix-sharded table: triangular
     probing crosses any slot-range partition (h + d(d+1)/2 lands up to
     66 slots past h), so prefix-local claims can race across shard
     boundaries — two devices claiming one physical slot for different
     voxels — while row-sharding the policy work removes the same
     replicated cost (the dominant insert phase) with no such hazard and
     no all-to-all. The claim loop (1-2 scatter rounds at steady state)
-    and the O(C) cull stay replicated; see docs/PERF.md for the measured
-    2-chip ceiling. U must divide by 128 * n_devices
+    and the O(C) cull stay replicated. U must divide by n_devices
     (parallel/sharding.pad_config_for_mesh enforces this).
     """
     cap = state.capacity
@@ -531,10 +531,10 @@ def insert(
 
     # --- retention policy on a COMPACT per-frame buffer ---------------------
     # The policy rounds mutate only the <= U touched voxels; running them
-    # directly on the (C, K, 4) table makes every round rewrite a ~170 MB
-    # buffer (measured ~12 ms/round in the full step). Instead: gather the
-    # touched blocks once (wide 640 B rows, the fast gather class), run all
-    # rounds on the (U, K, 4) compact buffer, scatter back once.
+    # directly on the (C, K, 4) table would make every round rewrite the
+    # whole ~84 MB block buffer. Instead: gather the touched blocks once
+    # (wide 320 B rows), run all rounds on the (U, K, 4) compact buffer,
+    # scatter back once.
     num_labels = basic_label_mask.shape[0]
     kidx = jnp.arange(kmax, dtype=jnp.int32)
     slot_c = jnp.where(has_slot, slot_u, 0)  # safe gather index
@@ -542,33 +542,11 @@ def insert(
     compact = points2[slot_c].reshape(U, 4, kmax)  # (U, 4, K) int16 planes
     ccounts = new_counts[slot_c]  # (U,)
     uidx = jnp.arange(U, dtype=jnp.int32)
-    # live label-0 slots, maintained INCREMENTALLY across rounds so each
-    # round touches ~(U,K) bools + one (U,4) scatter instead of re-reading
-    # the compact buffer
-    # --- fused Pallas policy kernel: every round is VMEM-resident VPU work
-    # instead of a separate lax.while_loop iteration (per-round launch
-    # overhead ~1 ms dominated the XLA path; docs/PERF.md) -----------------
+    # --- fused policy kernel: all rounds in one launch instead of one
+    # lax.while_loop iteration per incoming rank ---------------------------
     Rmax = max_incoming_per_voxel
-    # tiny blocks (the dynamic filter's K=1 occupancy grids, K<=4 label
-    # hashes) do at most a few policy rounds of trivial work — the XLA
-    # while_loop path is cheap there and the packed kernel's per-segment
-    # unrolling is not (see pallas_insert.apply_policy group cap)
-    import os as _os
-
-    use_kernel = (
-        (
-            U % 128 == 0
-            and kmax >= 8
-            and _os.environ.get("SAGE_PALLAS", "") != "off"
-        )
-        if policy_kernel is None
-        else policy_kernel
-    )
-    # apply_policy tiles rows at rows_per_block and asserts divisibility:
-    # match its tiling here (U = 384 would pass a %128 gate but fail a
-    # fixed 256-row tiling at trace time)
-    policy_rows = 256 if U % 256 == 0 else 128
-    if use_kernel:
+    mode = routing.resolve(kernel_mode)
+    if mode != routing.XLA:
         from sage_icp_tpu.ops import pallas_insert as pik
 
         lab_s = jnp.clip(
@@ -586,12 +564,8 @@ def insert(
         # each row's incoming points are CONTIGUOUS in the voxel-sorted
         # array: Rmax cheap rolls build per-COMPONENT (N, Rmax) window
         # tables and each incoming plane comes from ONE wide-row gather
-        # (96 B rows, the fast class). Planar (rank-major per component)
-        # so the kernel's per-round one-hot spans Rmax lanes, not
-        # 4*Rmax interleaved (round-5: that pick was ~70% of kernel
-        # time). A 1-D flat-window lax.gather looks equivalent but
-        # element-serializes (48 ms vs 0.6 ms, docs/PERF). Window
-        # wrap-around rows are gated by seglen in the kernel.
+        # (planar, rank-major per component). Window wrap-around rows
+        # are gated by seglen in the kernel.
         hp_c = jnp.minimum(head_pos, n - 1)
 
         def inc_plane(comp):
@@ -607,7 +581,7 @@ def insert(
         seglen_eff = jnp.where(
             has_slot, jnp.minimum(seg_len, Rmax), 0
         )[:, None]
-        interpret = jax.default_backend() != "tpu"
+        interpret = mode == routing.INTERPRET
         if mesh is not None and shard_axis in mesh.shape:
             # row-sharded policy: each device runs the kernel on its
             # U/n-row shard (see the multi-chip note in the docstring)
@@ -615,20 +589,16 @@ def insert(
             from jax.sharding import PartitionSpec as P
 
             n_dev = mesh.shape[shard_axis]
-            Ul = U // n_dev
-            assert U % n_dev == 0 and Ul % 128 == 0, (
-                f"insert_unique_capacity {U} must divide into 128-row "
-                f"tiles across {n_dev} devices "
-                "(parallel.sharding.pad_config_for_mesh)"
+            assert U % n_dev == 0, (
+                f"insert_unique_capacity {U} must divide evenly across "
+                f"{n_dev} devices (parallel.sharding.pad_config_for_mesh)"
             )
-            pr_local = 256 if Ul % 256 == 0 else 128
 
             def _policy_local(bx_, by_, bz_, bl_, cnt_, seg_,
                               ix_, iy_, iz_, ie_, r_):
                 return pik.apply_policy(
                     bx_, by_, bz_, bl_, cnt_, seg_, ix_, iy_, iz_, ie_, r_,
-                    n_rounds=Rmax, basic=basic_points,
-                    rows_per_block=pr_local, interpret=interpret,
+                    n_rounds=Rmax, basic=basic_points, interpret=interpret,
                 )
 
             row = P(shard_axis)
@@ -648,8 +618,7 @@ def insert(
                 compact[:, 0, :], compact[:, 1, :], compact[:, 2, :],
                 compact[:, 3, :], ccounts[:, None], seglen_eff,
                 inc_x, inc_y, inc_z, inc_e, rounds,
-                n_rounds=Rmax, basic=basic_points,
-                rows_per_block=policy_rows, interpret=interpret,
+                n_rounds=Rmax, basic=basic_points, interpret=interpret,
             )
         compact = jnp.stack([bx, by, bz, bl], axis=1)
         ccounts = cnt2[:, 0]
@@ -659,6 +628,8 @@ def insert(
         )
         return (out, stats) if with_stats else out
 
+    # live label-0 slots, maintained INCREMENTALLY across rounds so each
+    # round touches ~(U,K) bools instead of re-reading the compact buffer
     blk_labels0 = compact[:, 3, :].astype(jnp.int32)
     zero_live0 = (blk_labels0 == 0) & (kidx[None, :] < ccounts[:, None])
 
@@ -688,8 +659,7 @@ def insert(
         target = jnp.where(do_append, cnt, first_zero)
         write = do_append | do_overwrite
         # dense one-hot blend instead of a 2D scatter: writing one point
-        # per row is an elementwise pass over the compact buffer (~0.2 ms)
-        # where a (row, slot) scatter runs at ~0.1-1 GB/s
+        # per row is an elementwise pass over the compact buffer
         onehot_t = kidx[None, :] == target[:, None]  # (U, K)
         sel = write[:, None] & onehot_t
         compact = jnp.where(sel[:, None, :], pq[:, :, None], compact)

@@ -1,29 +1,20 @@
-"""Pallas TPU kernel: fused voxel-block retention policy.
+"""Pallas (Triton route) kernel: fused voxel-block retention policy.
 
 The semantic map insert (ops/hashmap.py) applies the reference's
-VoxelBlock::AddPoint policy (/root/reference
-cpp/sage_icp/core/VoxelHashMap.hpp:45-70) to every voxel touched by a
-frame: incoming points are processed IN SCAN ORDER per voxel, mutating
-the block's count and contents (append / drop / overwrite-first-label-0).
-The XLA formulation runs one lax.while_loop round per incoming point
-rank; each round re-launches a handful of elementwise kernels over the
-compact (U, K) buffers, and the fixed per-round overhead (~1 ms) — not
-bandwidth — dominates (docs/PERF.md).
+VoxelBlock::AddPoint policy (cpp/sage_icp/core/VoxelHashMap.hpp:45-70)
+to every voxel touched by a frame: incoming points are processed IN SCAN
+ORDER per voxel, mutating the block's count and contents (append / drop /
+overwrite-first-label-0). The XLA formulation runs one lax.while_loop
+round per incoming point rank; each round is a handful of kernel launches
+plus a loop-predicate read-back.
 
-This kernel runs ALL rounds over a row tile in one VMEM-resident pass:
-block planes load once, every round is pure VPU work on registers/VMEM,
-and the final planes/counts store once. The rounds run in an IN-KERNEL
-lax.fori_loop whose trip count is the TILE'S actual maximum
-points-per-voxel (per-tile SMEM scalar): unique voxels arrive in
-cell-code order, so spatial locality puts the dense road voxels (30-40
-incoming ranks at KITTI density) in a few tiles while most tiles bound
-out at 2-8 rounds — a global bound made EVERY tile pay the worst case
-(round-5 rework). The loop-carried round index selects incoming columns
-by one-hot masking (dynamic lane extraction lowers poorly on TPU);
-the incoming matrix is PLANAR — four (U, R_max) component planes — so
-each round's extraction one-hots over R_max lanes per component instead
-of 4*R_max interleaved lanes (round-5: the interleaved pick was ~70% of
-kernel time at R_max 48).
+This kernel runs ALL rounds for a block of rows in one launch: the block
+planes load once into registers, every round is elementwise work on them,
+and the final planes/counts store once. A block's round loop is bounded
+by its OWN maximum segment length (unique voxels arrive in cell-code
+order, so the dense road voxels sit in a few blocks while most blocks
+stop after 2-8 rounds). Round r reads column r of the incoming planes
+directly.
 
 Input layout (prepared by hashmap.insert):
   * block planes bx/by/bz/bl: (U, K) int16 quantized voxel-local
@@ -38,56 +29,50 @@ Input layout (prepared by hashmap.insert):
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 CLS_SHIFT = 12
 LABEL_MASK = (1 << CLS_SHIFT) - 1
+# block shape: a sweep of 9 shapes (8-128 rows, 1-8 warps) at kitti widths
+# on an H100 stayed within 6% (PERF.md)
+ROWS_PER_BLOCK = 32
+NUM_WARPS = 4
 
 
-def _kernel(smem_ref, bx_ref, by_ref, bz_ref, bl_ref, cnt_ref, seg_ref,
+def _kernel(bx_ref, by_ref, bz_ref, bl_ref, cnt_ref, seg_ref, rmax_ref,
             ix_ref, iy_ref, iz_ref, ie_ref,
-            ox_ref, oy_ref, oz_ref, ol_ref, ocnt_ref, zl_ref, *,
-            n_rounds: int, basic: int, kmax: int):
-    ox_ref[:] = bx_ref[:]
-    oy_ref[:] = by_ref[:]
-    oz_ref[:] = bz_ref[:]
-    ol_ref[:] = bl_ref[:]
-    ocnt_ref[:] = cnt_ref[:]
-    kiota = jax.lax.broadcasted_iota(jnp.int32, bl_ref.shape, 1)  # (TU, K)
-    lane_ok = kiota < kmax  # trailing tile-padding lanes
-    zl_ref[:] = (
-        (bl_ref[:].astype(jnp.int32) == 0)
-        & (kiota < cnt_ref[:])
-        & lane_ok
-    ).astype(jnp.int32)
-    seg = seg_ref[:]  # (TU, 1)
-    tile_rounds = smem_ref[pl.program_id(0)]  # this TILE's max rank
-    ix32 = ix_ref[:].astype(jnp.int32)  # (TU, R_max) planar components
-    iy32 = iy_ref[:].astype(jnp.int32)
-    iz32 = iz_ref[:].astype(jnp.int32)
-    ie32 = ie_ref[:].astype(jnp.int32)
-    r_iota = jax.lax.broadcasted_iota(jnp.int32, ix32.shape, 1)
+            ox_ref, oy_ref, oz_ref, ol_ref, ocnt_ref, *,
+            basic: int, kmax: int, kpad: int):
+    tu = cnt_ref.shape[0]
+    kiota = jnp.broadcast_to(
+        jnp.arange(kpad, dtype=jnp.int32)[None, :], (tu, kpad)
+    )
+    kmask = kiota < kmax  # K is not a power of two: mask a kpad-wide tile
+    sl = pl.ds(0, kpad)
+    planes = [
+        plgpu.load(r.at[:, sl], mask=kmask, other=0).astype(jnp.int32)
+        for r in (bx_ref, by_ref, bz_ref, bl_ref)
+    ]
+    cnt = cnt_ref[...]  # (TU,)
+    seg = jnp.minimum(seg_ref[...], rmax_ref[0])  # (TU,)
+    zl = (planes[3] == 0) & (kiota < cnt[:, None]) & kmask
 
     def _round(r, carry):
-        def pick(comp):  # one-hot rank extraction -> (TU, 1)
-            return jnp.sum(jnp.where(r_iota == r, comp, 0), axis=1)[:, None]
-
-        cnt = ocnt_ref[:]  # (TU, 1)
-        act = r < seg  # (TU, 1) bool
-        ix, iy, iz, enc = pick(ix32), pick(iy32), pick(iz32), pick(ie32)
+        bx, by, bz, bl, cnt, zl = carry
+        act = r < seg
+        ix = ix_ref[:, r].astype(jnp.int32)  # (TU,) rank r of each row
+        iy = iy_ref[:, r].astype(jnp.int32)
+        iz = iz_ref[:, r].astype(jnp.int32)
+        enc = ie_ref[:, r].astype(jnp.int32)
         cls = enc >> CLS_SHIFT  # 0 = label-0, 1 = basic, 2 = critical
         lab = enc & LABEL_MASK
-        zl = zl_ref[:] != 0  # (TU, K)
-        # first zero slot via min-index (Mosaic's argmax lowering is
-        # f32-only)
-        zidx = jnp.min(
-            jnp.where(zl, kiota, jnp.int32(2**30)), axis=1
-        )[:, None]  # (TU, 1)
-        has_zero = zidx < jnp.int32(2**30)
+        zidx = jnp.min(jnp.where(zl, kiota, 2**30), axis=1)
+        has_zero = zidx < 2**30
         first_zero = jnp.where(has_zero, zidx, 0)
 
         append_basic = cnt < basic
@@ -97,128 +82,29 @@ def _kernel(smem_ref, bx_ref, by_ref, bz_ref, bl_ref, cnt_ref, seg_ref,
 
         do_append = act & (append_basic | append_crit)
         do_over = act & (overwrite_b | overwrite_c) & has_zero
-        target = jnp.where(do_append, cnt, first_zero)  # (TU, 1)
-        write = do_append | do_over
-        sel = write & (kiota == target)  # (TU, K)
+        target = jnp.where(do_append, cnt, first_zero)
+        sel = (do_append | do_over)[:, None] & (kiota == target[:, None])
+        return (
+            jnp.where(sel, ix[:, None], bx),
+            jnp.where(sel, iy[:, None], by),
+            jnp.where(sel, iz[:, None], bz),
+            jnp.where(sel, lab[:, None], bl),
+            cnt + do_append.astype(jnp.int32),
+            # a written slot is zero-live iff the appended label is 0
+            jnp.where(sel, (lab == 0)[:, None], zl),
+        )
 
-        ox_ref[:] = jnp.where(sel, ix.astype(jnp.int16), ox_ref[:])
-        oy_ref[:] = jnp.where(sel, iy.astype(jnp.int16), oy_ref[:])
-        oz_ref[:] = jnp.where(sel, iz.astype(jnp.int16), oz_ref[:])
-        ol_ref[:] = jnp.where(sel, lab.astype(jnp.int16), ol_ref[:])
-        # a written slot is zero-live iff the appended label is 0
-        zl_ref[:] = jnp.where(sel, (lab == 0).astype(jnp.int32), zl_ref[:])
-        ocnt_ref[:] = cnt + do_append.astype(jnp.int32)
-        return carry
-
-    jax.lax.fori_loop(0, tile_rounds, _round, 0)
-
-
-def _kernel_packed(smem_ref, bx_ref, by_ref, bz_ref, bl_ref, cnt_ref,
-                   seg_ref, ix_ref, iy_ref, iz_ref, ie_ref,
-                   ox_ref, oy_ref, oz_ref, ol_ref,
-                   ocnt_ref, zl_ref, *, n_rounds: int, basic: int, kmax: int,
-                   group: int):
-    """Lane-packed variant: each row carries `group` voxel blocks side by
-    side (group * kmax lanes), so a K=40 block no longer wastes 2/3 of
-    the 128-lane VPU vector (docs/PERF.md round-1 lever #3). Per-voxel
-    scalars (count, seglen, incoming point) live in (TU, group) columns
-    and broadcast to their lane segment with `group` masked selects.
-    Incoming planes are (TU, group * R_max): segment s's rank r sits at
-    lane s * R_max + r."""
-    ox_ref[:] = bx_ref[:]
-    oy_ref[:] = by_ref[:]
-    oz_ref[:] = bz_ref[:]
-    ol_ref[:] = bl_ref[:]
-    ocnt_ref[:] = cnt_ref[:]
-    lane = jax.lax.broadcasted_iota(jnp.int32, bl_ref.shape, 1)  # (TU, GK)
-    lane_seg = lane // kmax  # which packed voxel this lane belongs to
-    lane_k = lane - lane_seg * kmax
-
-    def seg_cols(col_ref_vals):  # (TU, G) -> (TU, GK) per-lane broadcast
-        out = jnp.zeros(lane.shape, jnp.int32)
-        for s in range(group):
-            out = jnp.where(lane_seg == s, col_ref_vals[:, s:s + 1], out)
-        return out
-
-    cnt_lane0 = seg_cols(cnt_ref[:])
-    zl_ref[:] = (
-        (bl_ref[:].astype(jnp.int32) == 0) & (lane_k < cnt_lane0)
-    ).astype(jnp.int32)
-    seg_lane = seg_cols(seg_ref[:])
-    tile_rounds = smem_ref[pl.program_id(0)]
-    ix32 = ix_ref[:].astype(jnp.int32)  # (TU, G*R_max)
-    iy32 = iy_ref[:].astype(jnp.int32)
-    iz32 = iz_ref[:].astype(jnp.int32)
-    ie32 = ie_ref[:].astype(jnp.int32)
-    inc_iota = jax.lax.broadcasted_iota(jnp.int32, ix32.shape, 1)
-    BIGI = jnp.int32(2**30)
-
-    def _round(r, carry):
-        def pick(comp, s):  # voxel s's component at rank r -> (TU, 1)
-            return jnp.sum(
-                jnp.where(inc_iota == s * n_rounds + r, comp, 0), axis=1
-            )[:, None]
-
-        def pick_lane(comp):  # -> (TU, GK) per-lane incoming component
-            out = jnp.zeros(lane.shape, jnp.int32)
-            for s in range(group):
-                out = jnp.where(lane_seg == s, pick(comp, s), out)
-            return out
-
-        cnt = ocnt_ref[:]  # (TU, G)
-        cnt_lane = seg_cols(cnt)
-        act = r < seg_lane  # (TU, GK)
-        ix, iy, iz = pick_lane(ix32), pick_lane(iy32), pick_lane(iz32)
-        enc = pick_lane(ie32)
-        cls = enc >> CLS_SHIFT
-        lab = enc & LABEL_MASK
-        zl = zl_ref[:] != 0
-        # first zero slot PER SEGMENT via min of lane_k
-        zmin = jnp.where(zl, lane_k, BIGI)  # (TU, GK)
-        zidx_cols = []
-        for s in range(group):
-            zidx_cols.append(
-                jnp.min(jnp.where(lane_seg == s, zmin, BIGI), axis=1)[:, None]
-            )
-        zidx_lane = seg_cols(jnp.concatenate(zidx_cols, axis=1))
-        has_zero = zidx_lane < BIGI
-        first_zero = jnp.where(has_zero, zidx_lane, 0)
-
-        append_basic = cnt_lane < basic
-        overwrite_b = ~append_basic & (cls == 1)
-        append_crit = ~append_basic & (cls == 2) & (cnt_lane < kmax)
-        overwrite_c = ~append_basic & (cls == 2) & (cnt_lane >= kmax)
-
-        do_append = act & (append_basic | append_crit)
-        do_over = act & (overwrite_b | overwrite_c) & has_zero
-        target = jnp.where(do_append, cnt_lane, first_zero)
-        write = do_append | do_over
-        sel = write & (lane_k == target)
-
-        ox_ref[:] = jnp.where(sel, ix.astype(jnp.int16), ox_ref[:])
-        oy_ref[:] = jnp.where(sel, iy.astype(jnp.int16), oy_ref[:])
-        oz_ref[:] = jnp.where(sel, iz.astype(jnp.int16), oz_ref[:])
-        ol_ref[:] = jnp.where(sel, lab.astype(jnp.int16), ol_ref[:])
-        zl_ref[:] = jnp.where(sel, (lab == 0).astype(jnp.int32), zl_ref[:])
-        # per-segment append bump: did THIS segment append this round?
-        appended = do_append & (lane_k == target)  # one lane per segment
-        bumps = []
-        for s in range(group):
-            bumps.append(
-                jnp.sum(
-                    jnp.where(lane_seg == s, appended.astype(jnp.int32), 0),
-                    axis=1,
-                )[:, None]
-            )
-        ocnt_ref[:] = cnt + jnp.concatenate(bumps, axis=1)
-        return carry
-
-    jax.lax.fori_loop(0, tile_rounds, _round, 0)
+    *planes, cnt, _ = jax.lax.fori_loop(
+        0, jnp.max(seg), _round, (*planes, cnt, zl)
+    )
+    for o, v in zip((ox_ref, oy_ref, oz_ref, ol_ref), planes):
+        plgpu.store(o.at[:, sl], v.astype(jnp.int16), mask=kmask)
+    ocnt_ref[...] = cnt
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_rounds", "basic", "rows_per_block", "interpret"),
+    static_argnames=("n_rounds", "basic", "interpret"),
 )
 def apply_policy(
     bx: jax.Array,  # (U, K) int16 block x plane, quantized voxel-local
@@ -234,111 +120,37 @@ def apply_policy(
     max_rounds: jax.Array,  # int32 scalar: frame's actual max rank
     n_rounds: int,
     basic: int,
-    rows_per_block: int = 256,
     interpret: bool = False,
 ):
     """Returns (bx', by', bz', bl', counts') after applying the retention
-    policy for every row's incoming segment, in order.
-
-    When the row count allows, `group` voxel blocks are PACKED side by
-    side per kernel row (group = floor(128 / K)): a K=40 block alone
-    leaves 2/3 of the 128-lane vector idle, the dominant waste in this
-    kernel (docs/PERF.md round-1 lever #3). Each tile's round loop is
-    bounded by that tile's own max incoming rank (unique voxels arrive
-    in spatial cell order, so dense-road tiles pay 30-40 rounds while
-    typical tiles pay 2-8)."""
+    policy for every row's incoming segment, in order."""
     U, K = bx.shape
-    # group is capped: _kernel_packed's per-segment selects/one-hot loops
-    # unroll `group` times, so large groups (e.g. K=1 -> 128) explode the
-    # kernel's scoped VMEM (measured 97 MB vs the 16 MB limit on v5e) and
-    # Mosaic compile time. 4 packed blocks already fill >= 94% of the
-    # 128-lane vector for every K >= 30.
-    group = max(1, min(4, 128 // K)) if K < 128 else 1
-    while group > 1 and (
-        U % group != 0 or (U // group) % min(rows_per_block, U // group) != 0
-    ):
-        group -= 1
-    # per-tile max incoming rank (SMEM, one scalar per grid step). The
-    # global max_rounds still caps everything (seglen is pre-clipped).
-    seg_flat = jnp.minimum(seglen[:, 0], jnp.asarray(max_rounds, jnp.int32))
-    if group > 1:
-        G = group
-        Up = U // G
-        TU = min(rows_per_block, Up)
-        n_tiles = Up // TU
-        tile_rounds = jnp.max(
-            seg_flat.reshape(n_tiles, TU * G), axis=1
-        ).astype(jnp.int32)  # (n_tiles,)
-        out = pl.pallas_call(
-            functools.partial(
-                _kernel_packed, n_rounds=n_rounds, basic=basic, kmax=K,
-                group=G,
-            ),
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=1,
-                grid=(n_tiles,),
-                in_specs=[
-                    *[pl.BlockSpec((TU, G * K), lambda i, s: (i, 0))] * 4,
-                    *[pl.BlockSpec((TU, G), lambda i, s: (i, 0))] * 2,
-                    *[pl.BlockSpec((TU, G * n_rounds),
-                                   lambda i, s: (i, 0))] * 4,
-                ],
-                out_specs=[
-                    *[pl.BlockSpec((TU, G * K), lambda i, s: (i, 0))] * 4,
-                    pl.BlockSpec((TU, G), lambda i, s: (i, 0)),
-                ],
-                scratch_shapes=[pltpu.VMEM((TU, G * K), jnp.int32)],
-            ),
-            out_shape=[
-                *[jax.ShapeDtypeStruct((Up, G * K), jnp.int16)] * 4,
-                jax.ShapeDtypeStruct((Up, G), jnp.int32),
-            ],
-            interpret=interpret,
-        )(
-            tile_rounds,
-            bx.reshape(Up, G * K), by.reshape(Up, G * K),
-            bz.reshape(Up, G * K), bl.reshape(Up, G * K),
-            counts.reshape(Up, G), seglen.reshape(Up, G),
-            ix.reshape(Up, G * n_rounds), iy.reshape(Up, G * n_rounds),
-            iz.reshape(Up, G * n_rounds), ie.reshape(Up, G * n_rounds),
-        )
-        return (
-            out[0].reshape(U, K), out[1].reshape(U, K),
-            out[2].reshape(U, K), out[3].reshape(U, K),
-            out[4].reshape(U, 1),
-        )
-    TU = min(rows_per_block, U)
-    assert U % TU == 0, f"rows {U} not divisible by block {TU}"
-    n_tiles = U // TU
-    tile_rounds = jnp.max(
-        seg_flat.reshape(n_tiles, TU), axis=1
-    ).astype(jnp.int32)  # (n_tiles,)
-
-    plane = pl.BlockSpec((TU, K), lambda i, s: (i, 0))
-    col_i = pl.BlockSpec((TU, 1), lambda i, s: (i, 0))
-    inc_spec = pl.BlockSpec((TU, n_rounds), lambda i, s: (i, 0))
-    return pl.pallas_call(
-        functools.partial(_kernel, n_rounds=n_rounds, basic=basic, kmax=K),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_tiles,),
-            in_specs=[
-                plane, plane, plane, plane,
-                col_i, col_i,
-                inc_spec, inc_spec, inc_spec, inc_spec,
-            ],
-            out_specs=[plane, plane, plane, plane, col_i],
-            scratch_shapes=[pltpu.VMEM((TU, K), jnp.int32)],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((U, K), jnp.int16),
-            jax.ShapeDtypeStruct((U, K), jnp.int16),
-            jax.ShapeDtypeStruct((U, K), jnp.int16),
-            jax.ShapeDtypeStruct((U, K), jnp.int16),
-            jax.ShapeDtypeStruct((U, 1), jnp.int32),
+    TU = math.gcd(U, ROWS_PER_BLOCK)  # power of two dividing U
+    kpad = pl.next_power_of_2(K)
+    plane = pl.BlockSpec((TU, K), lambda i: (i, 0))
+    col = pl.BlockSpec((TU,), lambda i: (i,))
+    inc = pl.BlockSpec((TU, n_rounds), lambda i: (i, 0))
+    out = pl.pallas_call(
+        functools.partial(_kernel, basic=basic, kmax=K, kpad=kpad),
+        grid=(U // TU,),
+        in_specs=[
+            plane, plane, plane, plane, col, col,
+            pl.BlockSpec((1,), lambda i: (0,)),
+            inc, inc, inc, inc,
         ],
+        out_specs=[plane, plane, plane, plane, col],
+        out_shape=[
+            *[jax.ShapeDtypeStruct((U, K), jnp.int16)] * 4,
+            jax.ShapeDtypeStruct((U,), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
+        name="sage_retention_policy",
     )(
-        tile_rounds,
-        bx, by, bz, bl, counts, seglen, ix, iy, iz, ie,
+        bx, by, bz, bl, counts[:, 0], seglen[:, 0],
+        jnp.asarray(max_rounds, jnp.int32).reshape(1),
+        ix, iy, iz, ie,
     )
+    return (*out[:4], out[4][:, None])

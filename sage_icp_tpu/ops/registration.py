@@ -1,5 +1,5 @@
 """Point-to-point ICP with Gauss-Newton steps and a Geman-McClure-style
-robust kernel — the TPU-native re-design of the reference's registration
+robust kernel — an accelerator re-design of the reference's registration
 core (cpp/sage_icp/core/Registration.cpp).
 
 Reference semantics reproduced:
@@ -11,9 +11,9 @@ Reference semantics reproduced:
     (Registration.cpp:96-97,137)
   * empty map => return the initial guess unchanged (Registration.cpp:119)
 
-TPU mapping: per-point 3x6 Jacobians are assembled as one (N*3, 6) matrix
-so J^T W J / J^T W r reduce to two MXU matmuls (f32 accumulation); under a
-device mesh the points axis is sharded and the 6x6/6 results are psum-ed.
+Device mapping: per-point 3x6 Jacobians are assembled as one (N*3, 6)
+matrix so J^T W J / J^T W r reduce to two f32 matmuls; under a device
+mesh the points axis is sharded and the 6x6/6 results are psum-ed.
 The correspondence search + GN step live inside one lax.while_loop, so the
 whole ICP solve is a single XLA computation with a data-dependent trip
 count — no host round trips per iteration.
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from sage_icp_tpu.ops import geometry as geo
 from sage_icp_tpu.ops import hashmap as hm
+from sage_icp_tpu.ops import routing
 
 MAX_ITERATIONS = 500  # reference Registration.cpp:96
 ESTIMATION_THRESHOLD = 1e-4  # reference Registration.cpp:97
@@ -69,7 +70,7 @@ def build_normal_equations(
     Jf = J.reshape(n * 3, 6)
     Jwf = Jw.reshape(n * 3, 6)
     rf = r.reshape(n * 3)
-    # two MXU matmuls, f32 accumulation
+    # two f32 matmuls (precision pinned: no TF32 on GPUs)
     JTJ = jnp.matmul(Jwf.T, Jf, precision="highest")  # (6, 6)
     JTr = jnp.matmul(Jwf.T, rf[:, None], precision="highest")[:, 0]  # (6,)
     return JTJ, JTr
@@ -82,9 +83,8 @@ def solve_increment(JTJ: jax.Array, JTr: jax.Array) -> jax.Array:
 
     The 6x6 SPD solve is a STATICALLY UNROLLED Cholesky: scalar ops that
     XLA fuses into one kernel. jax.scipy.linalg.solve lowers to a generic
-    batched Cholesky + two triangular-solve kernels whose serial launch
-    latency (~0.6 ms) dwarfed the whole rest of an ICP iteration
-    (docs/PERF.md, scripts/profile_iter.py)."""
+    batched Cholesky + two triangular-solve kernels, three serial launches
+    per ICP iteration for a 6x6 system."""
     A = JTJ + 1e-8 * jnp.eye(6, dtype=JTJ.dtype)
     b = -JTr
     L = [[None] * 6 for _ in range(6)]
@@ -111,7 +111,7 @@ def solve_increment(JTJ: jax.Array, JTr: jax.Array) -> jax.Array:
     x = jnp.stack(x)
     # guard NaN/inf (singular geometry): a zero step terminates the loop
     x = jnp.where(jnp.all(jnp.isfinite(x)), x, jnp.zeros_like(x))
-    # Increment-norm clamp (TPU-f32 constraint, docs/ARCHITECTURE.md): a
+    # Increment-norm clamp (f32 constraint, docs/ARCHITECTURE.md): a
     # near-singular normal matrix with garbage correspondences can yield
     # |x| ~ 1e6+, and f32 se3_exp of such a twist is numerically NON-
     # orthonormal (trig argument reduction breaks down), after which the
@@ -147,16 +147,20 @@ def register_frame(
     probe_depth: int = hm.DEFAULT_PROBE_DEPTH,
     fast_params: dict | None = None,
     tables=None,
+    kernel_mode: str | None = None,
 ) -> IcpResult:
     """Frame-to-map ICP (reference Registration.cpp:113-141).
 
     frame: (N, 4) in the sensor frame; valid: (N,). Returns the new pose.
     When fast_params is given (dict with unique_voxel_rows /
-    queries_per_voxel / overflow_rows), the TPU-optimized correspondence
+    queries_per_voxel / overflow_rows), the voxel-grouped correspondence
     engine is used: probe tables are built once per solve (loop-invariant)
     from the map and the initial guess position — or reused from the
     caller when passed in (the pipeline shares one build per step between
     the ICP solve and the map insert).
+
+    kernel_mode: ops/routing mode for the GN iteration (None = the
+    backend's route: the fused kernel on a GPU, XLA on the CPU).
     """
     eye = jnp.eye(4, dtype=frame.dtype)
 
@@ -184,9 +188,9 @@ def register_frame(
         if tables is None:
             center = trunc_div(initial_guess[:3, 3], voxel_size)
             tables = cf.build_probe_tables(map_state, center, probe_depth)
-        mode = cf._pallas_mode()
+        mode = routing.resolve(kernel_mode)
         R = fast_params["unique_voxel_rows"] + fast_params["overflow_rows"]
-        fused = mode != "off" and R % 128 == 0
+        fused = mode != routing.XLA
         # drift at which the inner loop yields back to the outer loop:
         # conservative half of the 1-voxel mover shell, measured as the
         # displacement of the anchor position plus the small-angle arc of
@@ -212,7 +216,10 @@ def register_frame(
             # displacement of the vehicle position + rotation arc at the
             # scan radius (T_icp acts in world frame, rotation about the
             # world origin — measure its effect at the anchor, not at 0)
-            moved = T_icp[:3, :3] @ anchor_pos + T_icp[:3, 3] - anchor_pos
+            moved = (
+                jnp.matmul(T_icp[:3, :3], anchor_pos, precision="highest")
+                + T_icp[:3, 3] - anchor_pos
+            )
             cos_t = jnp.clip((jnp.trace(T_icp[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
             theta = jnp.arccos(cos_t)
             return jnp.linalg.norm(moved) + theta * r_scan
@@ -244,28 +251,15 @@ def register_frame(
                 anchor, T_icp, setup,
             )
             if fused:
-                q0f = setup.q0.reshape(R, -1)
-                row_abs = setup.row_rel + setup.center[None, :]
-                used_i = setup.grid_used.astype(jnp.int32)
-                # dead-tile map: live rows are u_rank-order prefixes, so
-                # trailing tiles of the worst-case-sized grid are whole-
-                # tile dead; the kernel re-reads block 0 for those
-                # instead of streaming dead candidates (pallas_nn note)
-                n_tiles = R // 128
-                live_tile = jnp.any(
-                    setup.grid_used.reshape(n_tiles, -1), axis=1
-                )
-                tile_map = jnp.where(
-                    live_tile, jnp.arange(n_tiles, dtype=jnp.int32), 0
-                )
                 sums = pnn.fused_gn_iteration(
                     setup.cxp, setup.cyp, setup.czp, setup.clp,
-                    offs[None, :, 0], offs[None, :, 1], offs[None, :, 2],
-                    q0f, setup.row_origin_abs, row_abs, used_i, T_icp,
+                    offs[:, 0], offs[:, 1], offs[:, 2],
+                    setup.q0.reshape(R, -1), setup.row_origin_abs,
+                    setup.row_rel + setup.center[None, :],
+                    setup.grid_used.astype(jnp.int32), T_icp,
                     sem_th, scale, voxel_size,
                     max_correspondence_distance, kernel,
-                    interpret=(mode == "interpret"),
-                    tile_map=tile_map,
+                    interpret=(mode == routing.INTERPRET),
                 )
                 JTJ, JTr, ncorr, _ = pnn.assemble_normal_equations(sums)
             else:

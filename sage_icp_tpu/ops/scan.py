@@ -69,10 +69,14 @@ def deskew(
     points: (N, 4), timestamps: (N,) normalized to [0, 1].
     Applies exp((t_i - 0.5) * log(start^-1 finish)) to xyz.
     """
-    delta = geo.se3_log(geo.se3_inverse(start_pose) @ finish_pose)  # (6,)
+    delta = geo.se3_log(jnp.matmul(
+        geo.se3_inverse(start_pose), finish_pose, precision="highest"
+    ))  # (6,)
     scaled = (timestamps - 0.5)[:, None] * delta[None, :]  # (N, 6)
     T = geo.se3_exp(scaled)  # (N, 4, 4)
-    xyz = jnp.einsum("nij,nj->ni", T[:, :3, :3], points[:, :3]) + T[:, :3, 3]
+    xyz = jnp.einsum(
+        "nij,nj->ni", T[:, :3, :3], points[:, :3], precision="highest"
+    ) + T[:, :3, 3]
     return jnp.concatenate([xyz, points[:, 3:]], axis=-1)
 
 
@@ -86,9 +90,9 @@ def make_label_group_lut(voxel_labels: list[list[int]], num_labels: int = 260) -
     return lut
 
 
-# Element gathers run at ~0.1-1 GB/s on TPU (docs/PERF.md), so a per-point
-# table lookup over 135k labels costs ~1 ms; up to this many table entries
-# a chain of vectorized equality-compares (fully fused by XLA) is faster.
+# Up to this many table entries, a per-point label lookup is a chain of
+# vectorized equality-compares (fused by XLA) instead of an element
+# gather from a LUT (gather avoidance; not measured on the H100).
 _COMPARE_CHAIN_MAX = 48
 
 
@@ -162,10 +166,9 @@ def voxel_downsample(
     key_lo = jnp.where(in_group, key_lo, big)
 
     # ONE stable lexicographic sort by (key_hi, key_lo), carrying the
-    # point planes as payload operands — a 7-operand sort costs the same
-    # as a 3-operand one (latency-bound) and removes the 16-byte-row
-    # points[order] gather (~1.3 GB/s class). Stability preserves scan
-    # order within a voxel ("keep the first point").
+    # point planes as payload operands instead of a 16-byte-row
+    # points[order] gather afterwards. Stability preserves scan order
+    # within a voxel ("keep the first point").
     kh, kl, sx, sy, sz, sl = jax.lax.sort(
         (key_hi, key_lo, points[:, 0], points[:, 1], points[:, 2],
          points[:, 3]),
@@ -183,11 +186,9 @@ def voxel_downsample(
     keep = head & ig
 
     # Compact the kept points to the front with ONE more stable payload
-    # sort on the keep bit: the scatter + 16-byte-row-gather form costs
-    # ~1-3 ms at scan scale (scatters 0.1-1 GB/s, narrow-row gathers
-    # ~1.3 GB/s) while an extra 5-operand sort is ~0.3 ms — XLA sorts are
-    # latency-bound, nearly free in extra operands (docs/PERF.md).
-    # Stability preserves the voxel-sorted order, as before.
+    # sort on the keep bit instead of a scatter + narrow-row gather
+    # (scatter avoidance; not measured on the H100). Stability preserves
+    # the voxel-sorted order, as before.
     _, ox, oy, oz, ol = jax.lax.sort(
         ((~keep).astype(jnp.uint32), sx, sy, sz, sl),
         num_keys=1,

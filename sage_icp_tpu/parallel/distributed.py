@@ -23,11 +23,11 @@ def init_distributed(
 ):
     """Multi-host entry point: initialize jax.distributed (DCN
     rendezvous) and return a mesh over ALL devices in the job — the
-    sharded step then runs unchanged, with point-axis collectives riding
-    ICI within a slice and DCN across hosts. With no arguments, JAX
-    picks the coordinator from the cluster environment (TPU pods set
-    this automatically). On CPU test rigs the gloo collectives backend
-    is selected automatically.
+    sharded step then runs unchanged, with point-axis collectives inside
+    a host over its device links and across hosts over the network.
+    Pass coordinator_address ("host:port"), num_processes and process_id
+    explicitly unless the cluster environment provides them. On CPU test
+    rigs the gloo collectives backend is selected automatically.
 
     This replaces the reference's only 'distributed' mechanism —
     ROS2/DDS pub-sub between single-host processes (SURVEY.md section
@@ -35,7 +35,7 @@ def init_distributed(
     import jax
 
     # select cross-process collectives for a CPU backend (gloo); the
-    # option is inert on TPU — and NOTHING here may query devices, which
+    # option is inert on GPUs — and NOTHING here may query devices, which
     # would initialize the backend prematurely
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")

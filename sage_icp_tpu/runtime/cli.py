@@ -73,9 +73,8 @@ def main(argv=None):
                     "STARVES the reference's adaptive threshold — see "
                     "docs/ARCHITECTURE.md round-4 finding)")
     ap.add_argument("--platform", type=str, default=None,
-                    help="force a JAX platform (e.g. cpu, tpu); overrides "
-                    "any site-pinned default, unlike the JAX_PLATFORMS env "
-                    "var which site customization may shadow")
+                    help="force a JAX platform (cpu, gpu); the default is "
+                    "JAX's own choice")
     args = ap.parse_args(argv)
     if args.synthetic:
         args.dataset = "synthetic"
@@ -83,6 +82,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    from sage_icp_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     from sage_icp_tpu.runtime.runner import make_odometry, run_sequence
     from sage_icp_tpu.runtime.keyframes import KeyframeExtractor

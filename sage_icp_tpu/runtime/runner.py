@@ -31,7 +31,7 @@ class IcpTimer:
     with std::chrono (pipeline/sageICP.cpp:79-88). Costs one extra solve
     per frame (prep + ICP replayed outside the fused step), so it is an
     instrumentation mode, not the throughput path. Replaces the round-3
-    hard-coded ICP_SETUP_S/ICP_ITER_S constants (VERDICT r3 #8): the
+    hard-coded ICP_SETUP_S/ICP_ITER_S constants: the
     number is a real clock on the current platform."""
 
     def __init__(self, config: SageConfig):
@@ -72,7 +72,7 @@ class IcpTimer:
         if not self._warm:
             # first call pays jit trace+compile of _icp inside the timed
             # span otherwise — frame 0's t_icp would report seconds of
-            # compile, not solve (ADVICE r4)
+            # compile, not solve
             jax.block_until_ready(self._icp(state.map, prep))
             self._warm = True
         t0 = time.perf_counter()

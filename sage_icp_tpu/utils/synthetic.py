@@ -177,8 +177,8 @@ def build_city_world(
     NO road at y=0: the bench vehicle drove through building-block
     interiors (no ground beneath it) and pierced a solid facade wall at
     x=22.5 — the reference-exact correspondence search diverges on that
-    unphysical workload exactly like the fast path (scripts/bench_debug.py
-    REPRO_MODE=nofast, round-4 bisect; see docs/ARCHITECTURE.md)."""
+    unphysical workload exactly like the fast path (round-4 bisect; see
+    docs/ARCHITECTURE.md)."""
     rng = np.random.default_rng(seed)
     pts, labs = [], []
     inv_d = 1.0 / float(density)

@@ -1,4 +1,4 @@
-"""Equivalence: the TPU-optimized correspondence engine must match the
+"""Equivalence: the voxel-grouped correspondence engine must match the
 reference-shaped path (which is itself oracle-verified in test_hashmap)."""
 
 import numpy as np

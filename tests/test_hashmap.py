@@ -3,9 +3,12 @@ reference cpp/sage_icp/core/VoxelHashMap.{hpp,cpp} semantics."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
+from conftest import KERNEL_MODES
 from sage_icp_tpu.ops import hashmap as hm
-from tests.oracle import OracleVoxelMap
+from sage_icp_tpu.ops import routing
+from oracle import OracleVoxelMap
 
 VOXEL = 1.0
 BASIC = 4
@@ -203,37 +206,51 @@ def test_negative_coords_truncation():
     assert live.sum() == 1
 
 
-def test_policy_kernel_matches_xla_loop(rng):
-    """The fused Pallas retention-policy kernel (ops/pallas_insert.py) must
-    be state-identical to the reference-shaped lax.while_loop path."""
-    # spread 2.5 -> at most 6^3 = 216 distinct voxels < the 256-row
-    # capacity, so the oracle comparison sees no capacity-drop effects
-    pts = random_scan(rng, 640, spread=2.5)
+@pytest.mark.parametrize("kernel_mode", KERNEL_MODES, indirect=True)
+@pytest.mark.parametrize(
+    "kmax,ucap,n_pts,spread,basic",
+    [
+        # spread 2.5 -> at most 6^3 = 216 distinct voxels < the 256-row
+        # capacity, so the oracle comparison sees no capacity-drop effects
+        (BASIC + CRITICAL, 256, 640, 2.5, BASIC),
+        # the PRODUCTION block size K=40 (not a power of two: the kernel
+        # masks a 64-lane tile) over 768 rows of 32-row blocks
+        (40, 768, 4000, 6.0, 20),
+    ],
+    ids=["k8", "k40"],
+)
+def test_policy_kernel_matches_xla_loop(rng, kernel_mode, kmax, ucap,
+                                        n_pts, spread, basic):
+    """The retention-policy kernel (ops/pallas_insert.py) must be
+    state-identical to the reference-shaped lax.while_loop path (the CPU
+    route), bit for bit."""
+    pts = random_scan(rng, n_pts, spread=spread)
     n = len(pts)
     args = (
         jnp.asarray(pts, dtype=jnp.float32),
         jnp.ones((n,), dtype=bool),
         VOXEL,
-        BASIC,
+        basic,
         make_mask(),
     )
-    a = hm.insert(mk_state(), *args, unique_voxel_capacity=256,
-                  policy_kernel=True)
-    b = hm.insert(mk_state(), *args, unique_voxel_capacity=256,
-                  policy_kernel=False)
+    a = hm.insert(hm.create(2048, kmax), *args, unique_voxel_capacity=ucap,
+                  kernel_mode=kernel_mode)
+    b = hm.insert(hm.create(2048, kmax), *args, unique_voxel_capacity=ucap,
+                  kernel_mode=routing.XLA)
     np.testing.assert_array_equal(np.asarray(a.counts), np.asarray(b.counts))
     np.testing.assert_array_equal(np.asarray(a.points), np.asarray(b.points))
     np.testing.assert_array_equal(np.asarray(a.keys), np.asarray(b.keys))
-    np.testing.assert_allclose(
+    np.testing.assert_array_equal(
         np.asarray(a.first_pts), np.asarray(b.first_pts)
     )
-    # and the kernel path still matches the oracle end to end
-    oracle = OracleVoxelMap(VOXEL, 100.0, BASIC, CRITICAL, BASIC_LABELS)
-    oracle.add_points(pts)
-    np.testing.assert_allclose(
-        sorted_rows(state_pointcloud(a)), sorted_rows(oracle.pointcloud()),
-        atol=1e-3,
-    )
+    if kmax == BASIC + CRITICAL:
+        # and the kernel path still matches the oracle end to end
+        oracle = OracleVoxelMap(VOXEL, 100.0, BASIC, CRITICAL, BASIC_LABELS)
+        oracle.add_points(pts)
+        np.testing.assert_allclose(
+            sorted_rows(state_pointcloud(a)),
+            sorted_rows(oracle.pointcloud()), atol=1e-3,
+        )
 
 
 def test_dense_grid_matches_window_lookup(rng):
@@ -261,7 +278,7 @@ def test_dense_grid_matches_window_lookup(rng):
         p = np.asarray(pts, dtype=np.float32)
         return hm.insert(
             state, jnp.asarray(p), jnp.ones(len(p), bool), VOXEL, BASIC,
-            make_mask(), unique_voxel_capacity=128, policy_kernel=False,
+            make_mask(), unique_voxel_capacity=128, kernel_mode=routing.XLA,
         )
 
     # fill a near region
@@ -288,33 +305,6 @@ def test_dense_grid_matches_window_lookup(rng):
     st = ins(st, near)
     check(st, probes)
     check(st, fprobes)
-
-
-def test_policy_kernel_lane_packed_matches_unpacked(rng):
-    """The lane-packed policy kernel (group blocks per 128-lane row,
-    ops/pallas_insert._kernel_packed) must be state-identical to the
-    XLA while_loop path at the PRODUCTION block size K=40, where packing
-    engages with group=3 (U divisible by 3*tile)."""
-    kmax = 40
-    state_a = hm.create(2048, kmax)
-    state_b = hm.create(2048, kmax)
-    pts = random_scan(rng, 4000, spread=6.0)
-    n = len(pts)
-    args = (
-        jnp.asarray(pts, dtype=jnp.float32),
-        jnp.ones((n,), dtype=bool),
-        VOXEL,
-        20,
-        make_mask(),
-    )
-    # 768 = 3 * 256: the packed dispatch picks group=3
-    a = hm.insert(state_a, *args, unique_voxel_capacity=768,
-                  policy_kernel=True)
-    b = hm.insert(state_b, *args, unique_voxel_capacity=768,
-                  policy_kernel=False)
-    np.testing.assert_array_equal(np.asarray(a.counts), np.asarray(b.counts))
-    np.testing.assert_array_equal(np.asarray(a.points), np.asarray(b.points))
-    np.testing.assert_array_equal(np.asarray(a.keys), np.asarray(b.keys))
 
 
 def test_remove_far_erases_keys(rng):

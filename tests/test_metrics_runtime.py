@@ -256,7 +256,7 @@ def test_kitti_raw_reader_roundtrip(tmp_path, rng):
 
 def test_estimate_icp_times_regression_recovers_marginal_cost():
     """The t_icp fallback is a per-run regression (no calibration
-    constants, VERDICT r3 #8): t_all = a + b*iters must recover b and
+    constants): t_all = a + b*iters must recover b and
     report t_icp = b*iters, clipped into [0, t_all]."""
     from sage_icp_tpu.runtime.runner import estimate_icp_times
 
@@ -269,7 +269,7 @@ def test_estimate_icp_times_regression_recovers_marginal_cost():
     err = np.abs(np.asarray(est[2:]) - b * iters[2:])
     assert err.max() < 5e-4, f"regressed t_icp off by {err.max():.2e}"
     # degenerate run (constant iteration count): honest "n/a" (None),
-    # not a fabricated number (VERDICT r4 weak #8)
+    # not a fabricated number
     est0 = estimate_icp_times([7] * 10, [0.02] * 10)
     assert est0 == [None] * 10
 

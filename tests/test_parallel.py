@@ -72,7 +72,7 @@ def test_multihost_two_process_agreement(tmp_path):
     sharded step over a 4-device mesh spanning the process boundary —
     the collectives (sort exchange, normal-equation psum, insert-policy
     all-gather) ride the gloo cross-process backend, the CPU stand-in
-    for DCN between TPU hosts. Both processes must produce the same
+    for the network between hosts. Both processes must produce the same
     trajectory as the single-process 4-device mesh."""
     import subprocess
     import sys as _sys
@@ -119,7 +119,7 @@ def test_multihost_two_process_agreement(tmp_path):
 def test_sharded_maneuver_equivalence():
     """Full turn/stop/reverse maneuver through ShardedSageICP on the
     8-device mesh vs the single-device step: the WHOLE trajectory must
-    agree (VERDICT r4 weak #3 — 3 straight frames on tiny shapes was the
+    agree (3 straight frames on tiny shapes was the
     only sharded-correctness evidence). The maneuver exercises the
     constant-velocity violation, re-anchoring, the adaptive threshold,
     and the cull-revisit path under GSPMD + the row-sharded insert."""
@@ -145,3 +145,28 @@ def test_sharded_maneuver_equivalence():
     assert d.max() < 5e-3, f"sharded trajectory diverged {d.max():.4f} m"
     # the sharded run must be healthy in its own right
     assert int(multi.aux_totals().nonfinite_pose) == 0
+
+
+def test_sharded_policy_kernel_matches_single_device_loop(rng):
+    """The row-sharded retention policy (the kernel under shard_map, one
+    U/n-row shard per device; here in the interpreter on 4 virtual
+    devices) must leave the map bit-identical to the single-device XLA
+    while_loop."""
+    from sage_icp_tpu.ops import hashmap as hm
+    from sage_icp_tpu.ops import routing
+
+    pts = np.concatenate([
+        rng.uniform(-5.0, 5.0, (3000, 3)),
+        rng.choice([0, 40, 50, 70], size=(3000, 1)),
+    ], axis=1).astype(np.float32)
+    args = (jnp.asarray(pts), jnp.ones(len(pts), bool), 1.0, 20,
+            jnp.zeros(260, bool).at[jnp.asarray([40, 50])].set(True))
+    mesh = sh.make_mesh(n_devices=4)
+    a = hm.insert(hm.create(4096, 40), *args, unique_voxel_capacity=1024,
+                  mesh=mesh, kernel_mode=routing.INTERPRET)
+    b = hm.insert(hm.create(4096, 40), *args, unique_voxel_capacity=1024,
+                  kernel_mode=routing.XLA)
+    assert int(np.asarray(b.counts > 0).sum()) > 500
+    for name in ("keys", "counts", "points", "first_pts"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                      np.asarray(getattr(b, name)))

@@ -3,10 +3,14 @@ numpy normal-equations oracle (reference cpp/sage_icp/core/Registration.cpp)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
+
+from conftest import KERNEL_MODES
 
 from sage_icp_tpu.ops import geometry as geo
 from sage_icp_tpu.ops import hashmap as hm
 from sage_icp_tpu.ops import registration as reg
+from sage_icp_tpu.ops import routing
 
 
 def np_normal_equations(src, tgt, kernel):
@@ -140,12 +144,11 @@ def test_icp_empty_map_returns_initial_guess(rng):
     assert int(result.iterations) == 1  # one zero-step then termination
 
 
-def test_fused_gn_iteration_matches_unfused(rng, monkeypatch):
+@pytest.mark.parametrize("kernel_mode", KERNEL_MODES, indirect=True)
+def test_fused_gn_iteration_matches_unfused(rng, kernel_mode):
     """The fully fused GN-iteration kernel (pallas_nn.fused_gn_iteration)
     must produce the same ICP solution as the corr_apply + XLA
-    normal-equations body."""
-    from sage_icp_tpu.ops import correspondence_fast as cf
-
+    normal-equations body (the CPU route)."""
     world = _make_map_and_frame(rng)
     state = hm.create(8192, 8)
     state = hm.insert(
@@ -158,19 +161,18 @@ def test_fused_gn_iteration_matches_unfused(rng, monkeypatch):
     frame = world.copy()
     frame[:, :3] = frame[:, :3] @ Tinv[:3, :3].T + Tinv[:3, 3]
     fast = dict(unique_voxel_rows=896, queries_per_voxel=8,
-                overflow_rows=128)  # R = 1024: fused path engages
+                overflow_rows=128)
 
-    def solve():
+    def solve(mode):
         return reg.register_frame(
             state, jnp.asarray(frame), jnp.ones(len(frame), dtype=bool),
             jnp.eye(4, dtype=jnp.float32), 1.0,
             max_correspondence_distance=1.5, kernel=0.5, sem_th=0.5,
-            max_iterations=60, fast_params=fast,
+            max_iterations=60, fast_params=fast, kernel_mode=mode,
         )
 
-    fused = solve()
-    monkeypatch.setattr(cf, "_pallas_mode", lambda: "off")
-    unfused = solve()
+    fused = solve(kernel_mode)
+    unfused = solve(routing.XLA)
     np.testing.assert_allclose(
         np.asarray(fused.pose), np.asarray(unfused.pose), atol=1e-4
     )

@@ -6,7 +6,7 @@ ATE on motion-distorted scans.
 
 The reference's accuracy oracle is GT trajectories + the KITTI error math
 (reference metrics/Metrics.cpp:140-191); with no KITTI data in this
-environment the synthetic oracle is made hard instead (VERDICT.md r1 #6)."""
+environment the synthetic oracle is made hard instead."""
 
 import os
 
@@ -147,7 +147,7 @@ def test_golden_trajectory_regression():
 
 def test_overflow_counters_fire_when_undersized(city):
     """A deliberately undersized config must make the drop counters
-    nonzero (VERDICT r1 #5: silent overflow was invisible). Two probes:
+    nonzero (silent overflow was invisible). Two probes:
     an undersized correspondence grid (corr_dropped fires — and since
     round 4 the collapsed solve is REJECTED, so icp_rejected fires and
     the insert is skipped), and an undersized insert with a healthy
@@ -221,7 +221,7 @@ def test_deskew_reduces_ate_on_distorted_scans(city):
     (azimuth sweep phase), and check deskew recovers accuracy
     (reference pipeline/sageICP.cpp:38-51, core/Deskew.cpp:36-50).
 
-    Round-5 fixture migration (VERDICT r4 #1b): this test ran on the
+    Round-5 fixture migration: this test ran on the
     corridor world through round 3, and at HEAD r4 deskew-ON looked 4.5x
     WORSE there. Root cause was the FIXTURE, not a deskew bug: at step
     1.2 / accel 4 even the UNDISTORTED corridor diverges (clean ATE 1.0+
@@ -267,7 +267,7 @@ def test_deskew_reduces_ate_on_distorted_scans(city):
 def test_production_kitti_preset_smoke(city):
     """Compile + step the REAL kitti preset (262k-slot map, 135k scan
     capacity) for 2 frames on CPU — catches shape/capacity regressions the
-    shrunken test configs cannot (VERDICT r1 #7)."""
+    shrunken test configs cannot."""
     cfg = pl.PRESETS["kitti"]
     gt = synthetic.make_trajectory(2, step=1.0)
     pts, labs = city
@@ -293,7 +293,7 @@ def test_long_horizon_city_drive():
     """150-frame (~147 m) city drive against the KITTI seq_error/ATE
     oracle — the reference's own verification is full-sequence replay
     (eval/kitti_pub.py:471-482); the 12-32-frame tests cannot catch
-    slow drift (VERDICT r4 weak #5). Thresholds are the round-5
+    slow drift. Thresholds are the round-5
     measured values (LONGRUN_r05.json) x ~5 margin: loose enough for
     seed/platform noise, tight enough that a real drift regression
     (0.1 m/frame is 100x the margin) fails loudly."""
